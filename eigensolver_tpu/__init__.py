@@ -1,6 +1,6 @@
-"""eigensolver_tpu: TPU-native MHD eigensolver framework.
+"""eigensolver_tpu: MHD eigensolver framework in JAX.
 
-A brand-new JAX/XLA/Pallas implementation of the capabilities of
+A JAX/XLA implementation of the capabilities of
 samuelskirvin/EIGENSOLVER: dispersion diagrams, eigenvalues and eigenfunctions
 of magnetoacoustic waves in non-uniform magnetic slabs and cylinders, with
 density, longitudinal-flow and rotational-flow equilibria, real and complex

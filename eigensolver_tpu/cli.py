@@ -48,10 +48,13 @@ def _build_case(args):
 
 def _apply_device(args):
     import jax
+
+    from .utils import enable_compile_cache
     if getattr(args, "device", None):
         jax.config.update("jax_platforms", args.device)
     if getattr(args, "x64", False):
         jax.config.update("jax_enable_x64", True)
+    enable_compile_cache()
 
 
 def _add_case_args(p, with_case=True):

@@ -1,4 +1,4 @@
-"""Declarative configuration for the TPU-native MHD eigensolver.
+"""Declarative configuration for the MHD eigensolver.
 
 The reference (samuelskirvin/EIGENSOLVER) hard-codes every physical constant,
 profile choice, grid range, tolerance and output filename per script, keeping
@@ -136,10 +136,9 @@ class GridConfig:
     axis_epsilon_final: float = 1e-5
     n_axis_log: int = 128        # RK4 steps of the log-spaced axis tail
     # lax.scan unroll factor of the fixed-step RK4 integrators: several RK4
-    # steps fuse into one loop iteration, amortising the TPU's fixed
-    # per-iteration sequential overhead (which dominates a 2048-step scan of
-    # a small elementwise body). Root positions are bit-identical - unrolling
-    # changes scheduling, not arithmetic.
+    # steps fuse into one loop iteration, amortising the fixed cost each
+    # loop iteration pays on the device. Root positions are bit-identical -
+    # unrolling changes scheduling, not arithmetic.
     scan_unroll: int = 1
     # cylinder exterior treatment: "bessel" evaluates the exact K_m logarithmic
     # derivative (special.kve_ratio - faster and exact); "numeric" integrates

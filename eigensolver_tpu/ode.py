@@ -3,7 +3,7 @@
 Replaces the reference's adaptive `scipy.integrate.odeint` (LSODA) and its
 complex-view wrapper `odeintz` (`Twisted_photospheric_flow_sausage.py:67-96`).
 Fixed step count => static shapes => `vmap`-able over 10^4..10^6 simultaneous
-(omega, k) candidates, which is where all the TPU throughput comes from
+(omega, k) candidates, which is where all the device throughput comes from
 (SURVEY.md section 7, design delta 2). Complex state is supported natively by
 XLA (complex64/128) - no float-view trick needed.
 """
@@ -25,9 +25,8 @@ def rk4_final(rhs: RHS, y0, x0, x1, n_steps: int, unroll: int = 1):
     e.g. the exterior extent 3*2*pi/k of `Density_cylinder.py:552`).
 
     unroll: forwarded to `lax.scan` - unrolling several RK4 steps per loop
-    iteration lets XLA fuse across step boundaries and amortise the TPU
-    loop overhead (each scan iteration of a small elementwise body pays a
-    fixed sequential cost that dominates a 2048-step integration)."""
+    iteration lets XLA fuse across step boundaries and amortise the fixed
+    cost each loop iteration pays on the device."""
     h = (x1 - x0) / n_steps
 
     def step(carry, i):

@@ -2,15 +2,16 @@
 
 The reference's only parallelism is one OS process per (k, speed-band) cell
 with `multiprocessing.Queue` collection (SURVEY.md P1/P2; 1800 concurrent
-processes for the cylinder sweep, `Density_cylinder.py:1126-1153`). The
-TPU-native equivalent: the flattened (k, band) ladder-row axis is sharded over
-a `jax.sharding.Mesh`; the ladder scan, bracketing and vectorised bisection are
+processes for the cylinder sweep, `Density_cylinder.py:1126-1153`). Here
+the flattened (k, band) ladder-row axis is sharded over a 1-D
+`jax.sharding.Mesh`; the ladder scan, bracketing and vectorised bisection are
 all row-local, so XLA SPMD runs them with zero communication; candidate roots
 are gathered to the host once at the end (replacing Queue+chain-flatten) and
 deduplicated there.
 
 Multi-host: `jax.distributed.initialize()` + the same mesh over all processes;
-the gather rides ICI within a slice and DCN across hosts.
+the gather rides the interconnect within a host and the network across
+hosts. The cards of one host are joined all to all, so the mesh stays 1-D.
 """
 from __future__ import annotations
 
@@ -36,16 +37,14 @@ def init_distributed(coordinator: Optional[str] = None,
     Call once per process before any other JAX API. Arguments default to the
     `EIGENSOLVER_COORDINATOR` / `EIGENSOLVER_NUM_PROCESSES` /
     `EIGENSOLVER_PROCESS_ID` environment variables (so launchers can export
-    them without touching user code); on TPU pods with no env set,
-    `jax.distributed.initialize()` autodetects from the TPU metadata. Returns
-    True when a multi-process runtime was initialised, False when the env
-    requests none (single-host run).
+    them without touching user code). Returns True when a multi-process
+    runtime was initialised, False when the env requests none (single-host
+    run).
 
     This is the capability replacing the reference's single-node 1800-process
     fan-out (`Density_cylinder.py:1126-1153`): after initialisation,
     `jax.devices()` spans all hosts, `make_mesh()` builds a global mesh, and
-    `run_case_sharded` runs one SPMD program over it - candidate-grid gathers
-    ride ICI within a slice and DCN across hosts.
+    `run_case_sharded` runs one SPMD program over it.
     """
     import os
     coordinator = coordinator or os.environ.get("EIGENSOLVER_COORDINATOR")
@@ -138,7 +137,7 @@ def run_case_sharded(case: CaseConfig, mesh: Optional[Mesh] = None,
                      row_bucket=n_dev, modes=md_dev)
     if jax.process_count() > 1:
         # multi-controller: the result shards live on different hosts; one
-        # DCN all-gather replicates them so every process holds the full root
+        # cross-host all-gather replicates them so every process holds the full root
         # set (replaces the reference's Queue drain, SURVEY.md P2)
         from jax.experimental import multihost_utils
         pr = type(pr)(*[None if x is None

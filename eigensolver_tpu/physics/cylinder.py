@@ -1,4 +1,4 @@
-"""Cylinder geometry dispersion function (Hain-Lust P_T formulation), TPU-native.
+"""Cylinder geometry dispersion function (Hain-Lust P_T formulation).
 
 Physics replicated from the reference solvers:
 - non-uniform density:    `Cylinder/Non-uniform density/Coronal/solvers/
@@ -29,8 +29,8 @@ Design deltas vs the reference (SURVEY.md section 7):
 - The exterior (P'' = -P'/r + (m_e + m^2/r^2) P, `Density_cylinder.py:630-631`)
   is integrated inward from r_far = W * 2pi/k with renormalised fixed-step RK4,
   selecting the decaying K_m-direction solution exactly as the reference's
-  tiny-IC LSODA integration does. (An analytic Bessel-K fast path lives in
-  `eigensolver_tpu.special` / `kernels.bessel`.)
+  tiny-IC LSODA integration does. (The default exterior is the analytic
+  Bessel-K logarithmic derivative of `eigensolver_tpu.special`.)
 """
 from __future__ import annotations
 
@@ -42,6 +42,7 @@ import jax.numpy as jnp
 
 from jax import lax
 
+from .. import special
 from ..config import CaseConfig
 from ..equilibrium import Equilibrium, make_equilibrium
 from ..ode import rk4_final
@@ -53,8 +54,7 @@ def _rk4_linear2(coef, y0, x0, x1, n_steps: int, unroll: int = 1):
     - the expensive part, carrying the whole Hain-Lust chain - is evaluated
     at the 3 distinct RK4 abscissae (x, x + h/2, x + h) instead of once per
     stage (k2 and k3 share the midpoint chain, which XLA's CSE does not
-    reliably merge across stage boundaries; measured on the TPU interior
-    scan). The y-update arithmetic is identical to `ode.rk4_final` over
+    reliably merge across stage boundaries). The y-update arithmetic is identical to `ode.rk4_final` over
     `rhs_int2`, so integrated states are bit-identical where CSE did merge
     and mathematically identical everywhere."""
     h = (x1 - x0) / n_steps
@@ -304,16 +304,13 @@ class CylinderPhysics:
             m_e = self.exterior_m(omega, k)
             if gr.exterior_method == "bessel":
                 # exact: P_e(r) = K_m(sqrt(m_e) r); logarithmic derivative at
-                # r=1 (complex-capable, Re sqrt >= 0). The _hot wrapper has
-                # scalar semantics here but routes the whole vmapped sweep
-                # batch through the fused Pallas TPU kernel
-                # (kernels/bessel.py) - the framework's custom-kernel hot
-                # path, replacing the reference's numeric exterior
-                # integration (`Density_cylinder.py:628-634`).
-                from ..kernels.bessel import kve_ratio_both_hot
+                # r=1 (complex-capable, Re sqrt >= 0), replacing the
+                # reference's numeric exterior integration
+                # (`Density_cylinder.py:628-634`). Elementwise series + CF2
+                # that XLA fuses into the surrounding dispersion program.
                 sq = jnp.sqrt(m_e.astype(cdtype)) if case.complex_omega \
                     else jnp.sqrt(jnp.maximum(m_e, 1e-300))
-                r0, r1_ = kve_ratio_both_hot(sq)
+                r0, r1_ = special.kve_ratio_both(sq)
                 dP_e = sq * jnp.where(is_sausage, r0, r1_)
                 P_e = jnp.ones_like(dP_e)
             else:

@@ -1,4 +1,4 @@
-"""Slab geometry dispersion function (vx formulation), TPU-native.
+"""Slab geometry dispersion function (vx formulation).
 
 Physics replicated from the reference solvers (capability parity, new design):
 - non-uniform density:   `Slab/Non uniform density/Photospheric/Solvers/

@@ -13,9 +13,6 @@ term for K), asymptotic expansion for |z| > 9 (A&S 9.7.1-9.7.2), blended with
 `jnp.where`. The dispersion determinant only needs the scale-invariant
 logarithmic derivative K_m'(z)/K_m(z), so overflow/underflow of e^{+-z} is
 avoided entirely by using the SCALED functions (I_m e^{-|Re z|}, K_m e^{+z}).
-
-A fused Pallas/TPU kernel of the same evaluation lives in
-`eigensolver_tpu.kernels.bessel`.
 """
 from __future__ import annotations
 

@@ -431,54 +431,56 @@ def finalize_branches(pr, modes, case: CaseConfig, search: SearchConfig,
                       refine_f64: bool = False) -> Dict[str, RootBranch]:
     """Shared tail of run_case / parallel.run_case_sharded: host gather of
     accepted roots, per-mode dedup, optional f64 re-bisection + re-judged
-    acceptance (search.refine_on_cpu; see SearchConfig.accept_pct_refined).
+    acceptance (search.refine_roots_f64; see SearchConfig.accept_pct_refined).
     One definition so single-device and mesh-sharded sweeps cannot drift."""
     om, kk, mm, md, fz = collect(pr, with_fuzz=True)
+    sel = {m: np.abs(md - float(m)) < 0.5 for m in modes}
+    if refine_f64:
+        # refine only POLISHED roots: fuzz (reference-parity swath) entries
+        # must stay at the reference's scan seeds - an f64 re-bisection
+        # would yank them onto the nearest determinant zero (often a
+        # continuum-forest crossing), off the seed the reference recorded
+        # (measured: cyl_flow_1 kink matches drop 373 -> 309 when fuzz
+        # entries are refined)
+        polished = _refine_polished(case, search, {
+            m: dedup_roots(om[s & ~fz], kk[s & ~fz],
+                           rel_tol=case.tol.dedup_rel)
+            for m, s in sel.items()})
     branches: Dict[str, RootBranch] = {}
     for mode in modes:
-        sel = np.abs(md - float(mode)) < 0.5
         if refine_f64:
-            # refine only POLISHED roots: fuzz (reference-parity swath)
-            # entries must stay at the reference's scan seeds - an f64
-            # re-bisection would yank them onto the nearest determinant zero
-            # (often a continuum-forest crossing), off the seed the
-            # reference recorded (measured: cyl_flow_1 kink matches drop
-            # 373 -> 309 when fuzz entries are refined)
-            pol = sel & ~fz
-            om_m, kk_m = dedup_roots(om[pol], kk[pol],
-                                     rel_tol=case.tol.dedup_rel)
-            if len(om_m):
-                from .search import refine_on_cpu
-                om_m, bracketed = refine_on_cpu(
-                    lambda m=mode: make_dispersion(case, m,
-                                                   dtype=jnp.float64),
-                    om_m, kk_m, return_bracketed=True)
-                # candidates the f64 dispersion never brackets (within the
-                # widened ~2e-3 window) are f32 scan noise, not roots - drop
-                # them instead of shipping the f32 value (see refine_on_cpu)
-                om_m, kk_m = om_m[bracketed], kk_m[bracketed]
-                if search.accept_pct_refined is not None:
-                    # re-judge acceptance at the f64-refined root (see
-                    # SearchConfig.accept_pct_refined)
-                    cpu = jax.devices("cpu")[0]
-                    with jax.default_device(cpu):
-                        d64 = jax.jit(jax.vmap(
-                            make_dispersion(case, mode, dtype=jnp.float64)))
-                        res = d64(jnp.asarray(om_m, jnp.float64),
-                                  jnp.asarray(kk_m, jnp.float64))
-                    keep = (np.asarray(res.mismatch_pct) <
-                            search.accept_pct_refined) & np.asarray(res.valid)
-                    om_m, kk_m = om_m[keep], kk_m[keep]
-            fzs = sel & fz
-            om_m = np.concatenate([om_m, om[fzs]])
-            kk_m = np.concatenate([kk_m, kk[fzs]])
-            om_m, kk_m = dedup_roots(om_m, kk_m, rel_tol=case.tol.dedup_rel)
+            fzs = sel[mode] & fz
+            om_m = np.concatenate([polished[mode][0], om[fzs]])
+            kk_m = np.concatenate([polished[mode][1], kk[fzs]])
         else:
-            om_m, kk_m = dedup_roots(om[sel], kk[sel],
-                                     rel_tol=case.tol.dedup_rel)
+            om_m, kk_m = om[sel[mode]], kk[sel[mode]]
+        om_m, kk_m = dedup_roots(om_m, kk_m, rel_tol=case.tol.dedup_rel)
         name = MODE_NAMES.get(mode, f"m{mode}")
         branches[name] = RootBranch(omegas=om_m, ks=kk_m).sorted_by_k()
     return branches
+
+
+def _refine_polished(case: CaseConfig, search: SearchConfig,
+                     roots: dict) -> dict:
+    """{mode: (omegas, ks)} -> the same, f64-refined in one device program
+    for all modes (search.refine_roots_f64). Candidates the f64 dispersion
+    never brackets (within the widened ~2e-3 window) are f32 scan noise,
+    not roots: they are dropped instead of shipping the f32 value."""
+    from .search import refine_roots_f64
+    om = np.concatenate([r[0] for r in roots.values()])
+    kk = np.concatenate([r[1] for r in roots.values()])
+    md = np.concatenate([np.full(len(r[0]), float(m))
+                         for m, r in roots.items()])
+    d64 = make_dispersion_moded(case, jnp.float64)
+    om, keep = refine_roots_f64(d64, om, kk, md)
+    if search.accept_pct_refined is not None and len(om):
+        # re-judge acceptance at the f64-refined root (see
+        # SearchConfig.accept_pct_refined)
+        res = d64(jnp.asarray(om, jnp.float64), jnp.asarray(kk, jnp.float64),
+                  jnp.asarray(md, jnp.float64))
+        keep = keep & (np.asarray(res.mismatch_pct) < search.accept_pct_refined
+                       ) & np.asarray(res.valid)
+    return {m: (om[keep & (md == m)], kk[keep & (md == m)]) for m in roots}
 
 
 def needle_edges(case: CaseConfig, labels: Optional[tuple] = ("cusp",)):
@@ -543,7 +545,7 @@ def run_needle_pass(case: CaseConfig, search: Optional[SearchConfig] = None,
     the distance resolves the densifying structure at every depth with
     ~500 points instead of the ~10^6 a uniform ladder would need), run in
     float64 (the structure sits below the f32 cancellation-noise floor)
-    on the host CPU, through the same fused
+    on the default device, through the same fused
     scan->bracket->bisect->accept pipeline and `finalize_branches` as the
     main sweep; pole crossings are rejected by the residual acceptance at
     the converged point. Dedup is tightened to 1e-6 relative so adjacent
@@ -605,13 +607,9 @@ def run_needle_pass(case: CaseConfig, search: Optional[SearchConfig] = None,
     disp = make_dispersion_moded(case, jnp.dtype("float64"))
     stats = SweepStats()
     t0 = time.time()
-    # f64 has no TPU support: run on the host CPU like refine_on_cpu
-    cpu = jax.devices("cpu")[0]
-    with jax.default_device(cpu):
-        pr = search_rows(disp, disp, omegas_f, ks_f, search,
-                         modes=modes_f)
-        jax.block_until_ready(pr.mask)
-        branches = finalize_branches(pr, modes, case, search)
+    pr = search_rows(disp, disp, omegas_f, ks_f, search, modes=modes_f)
+    jax.block_until_ready(pr.mask)
+    branches = finalize_branches(pr, modes, case, search)
     # keep only the `edge_modes` innermost zeros of each IN-BAND window
     # per (k, edge): markers of the band-edge accumulation point (see
     # docstring); deeper in-band crossings are discretization noise
@@ -644,13 +642,13 @@ def _filter_edge_modes(branch: RootBranch, edges, width_rel: float,
 
 
 def run_case(case: CaseConfig, search: Optional[SearchConfig] = None,
-             modes=None, device=None, refine_f64: bool = False,
+             modes=None, refine_f64: bool = False,
              timer=None) -> tuple[RootSet, SweepStats]:
     """Single-process sweep of one case. Returns (RootSet, SweepStats).
 
-    refine_f64: after an f32 on-device sweep, re-bisect the accepted roots in
-    float64 on the host CPU (search.refine_on_cpu) to reach ~1e-7 relative
-    (TPU v5e has no native f64).
+    refine_f64: after an f32 sweep, re-bisect the accepted roots in float64
+    on the default device (search.refine_roots_f64) to reach ~1e-7
+    relative. Needs jax_enable_x64.
 
     timer: optional `utils.StageTimer`; accumulates wall time of the three
     sweep stages (ladders / device pipeline / host finalize) so throughput

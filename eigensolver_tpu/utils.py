@@ -2,13 +2,14 @@
 
 The reference's only instrumentation is one wall-clock print per run
 (`multiprocessor_Inhomogeneous_method.py:778,1119`; SURVEY.md section 5).
-Here: a stage timer usable as a context manager and a `jax.profiler` trace
-wrapper for TPU timelines.
+Here: a stage timer usable as a context manager, a `jax.profiler` trace
+wrapper for device timelines, and the placement of JAX's compile cache.
 """
 from __future__ import annotations
 
 import contextlib
 import logging
+import os
 import time
 from typing import Dict, Optional
 
@@ -63,3 +64,20 @@ def block_and_time(fn, *args, n: int = 1, **kwargs):
         out = fn(*args, **kwargs)
         jax.block_until_ready(out)
     return out, (time.perf_counter() - t0) / max(n, 1)
+
+
+def enable_compile_cache() -> str:
+    """Place JAX's persistent compilation cache; return its directory.
+
+    If `JAX_COMPILATION_CACHE_DIR` is set, JAX reads it itself and nothing
+    is set here. Otherwise the cache goes to `<checkout>/.jax_cache`, a path
+    fixed by this package's location, never a temporary or per-process name
+    that a later run could not find again."""
+    env = os.environ.get("JAX_COMPILATION_CACHE_DIR")
+    if env:
+        return env
+    import jax
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), ".jax_cache")
+    jax.config.update("jax_compilation_cache_dir", path)
+    return path

@@ -3,11 +3,11 @@ single-process sharded sweep.
 
 This exercises the REAL multi-host code path - `parallel.init_distributed`
 (env-gated `jax.distributed.initialize`), a global mesh spanning both
-processes, `make_array_from_callback` placement, and the DCN-analogue
+processes, `make_array_from_callback` placement, and the cross-host
 `process_allgather` result collection - on two local CPU processes with 2
-virtual devices each (4 global). On a TPU pod the identical program runs
-with ICI/DCN instead of grpc-over-localhost; the work partition and
-collectives are the same (SURVEY.md P3, replacing the reference's
+virtual devices each (4 global). Across real hosts the identical program
+runs over the network instead of grpc-over-localhost; the work partition
+and collectives are the same (SURVEY.md P3, replacing the reference's
 single-node 1800-process fan-out, `Density_cylinder.py:1126-1153`).
 """
 import json

@@ -1,7 +1,7 @@
 """Candidate-grid sharding: sharded sweep == single-device sweep, exactly.
 
-Runs on the 8-virtual-device CPU mesh from conftest (the stand-in for a TPU
-pod slice, SURVEY.md section 4/5 testing plan).
+Runs on the 8-virtual-device CPU mesh from conftest (the stand-in for a
+multi-card mesh, SURVEY.md section 4/5 testing plan).
 """
 import dataclasses
 

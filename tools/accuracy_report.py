@@ -30,81 +30,8 @@ import numpy as np
 sys.path.insert(0, ".")
 
 
-def _nearest_zero(f_batch, v0, w_start=4e-6, w_max=5e-3, n_scan=257):
-    """The analytic-relation zero NEAREST v0, by expanding-window scan.
-
-    Replaces the r03 matcher's single +-0.5% bracket, whose attribution
-    failed near mode-accumulation points: with several adjacent analytic
-    zeros (and tan-type poles) inside one wide bracket, plain bisection
-    lands on an arbitrary sign change and reports a ~1e-3 'deviation' that
-    is matcher error, not solver error (VERDICT r03 weak #3). Here the
-    window starts at +-4e-6 relative and grows 8x until it contains at
-    least one sign-change bracket; ALL brackets in the window are bisected,
-    pole crossings are rejected (|f| at the converged point exceeding the
-    bracket-endpoint values identifies a tan/K_m pole), and the zero
-    closest to v0 wins - so a root is never matched across a nearer zero.
-    """
-    w = w_start
-    while w <= w_max:
-        lo, hi = v0 * (1 - w), v0 * (1 + w)
-        vs = np.linspace(lo, hi, n_scan)
-        fs = f_batch(vs)
-        ok = np.isfinite(fs)
-        sgn = np.sign(fs)
-        br = (sgn[:-1] * sgn[1:] < 0) & ok[:-1] & ok[1:]
-        zeros = []
-        for i in np.where(br)[0]:
-            a, b = vs[i], vs[i + 1]
-            fa, fb = fs[i], fs[i + 1]
-            for _ in range(80):
-                m = 0.5 * (a + b)
-                fm = f_batch(np.asarray([m]))[0]
-                if not np.isfinite(fm):
-                    break
-                if np.sign(fm) == np.sign(fa):
-                    a, fa = m, fm
-                else:
-                    b, fb = m, fm
-            v_star = 0.5 * (a + b)
-            # pole rejection: at a genuine zero |f| shrinks toward the
-            # bisection limit; at a tan/K_m pole it blows up past the
-            # original bracket endpoints
-            probe = f_batch(v_star * np.asarray([1 - 1e-12, 1 + 1e-12]))
-            probe = probe[np.isfinite(probe)]
-            if len(probe) and np.min(np.abs(probe)) > 10.0 * max(
-                    abs(fs[i]), abs(fs[i + 1])):
-                continue
-            zeros.append(v_star)
-        if zeros:
-            return min(zeros, key=lambda z: abs(z - v0))
-        if w == w_max:
-            break
-        # clamp the final iteration TO w_max: the bare x8 ladder ends at
-        # 2.048e-3 and never scans the documented +-0.5% (roots 0.2-0.5%
-        # from the nearest zero silently dropped out of the stats -
-        # ADVICE r04 #1)
-        w = min(w * 8.0, w_max)
-    return np.nan
-
-
-def analytic_deviation(rg, omegas, ks, branch_parity, geometry):
-    """Per-root relative deviation |om - om_analytic| / om_analytic, where
-    om_analytic is the analytic-relation zero NEAREST each refined root
-    (see _nearest_zero; NaN where no zero exists within +-0.5%)."""
-    from eigensolver_tpu.analytic import cylinder_relation, slab_relation
-    rel = slab_relation if geometry == "slab" else cylinder_relation
-    devs = []
-    for om, k in zip(omegas, ks):
-        f_batch = lambda v: np.asarray(rel(rg, np.asarray(v), k,
-                                           branch_parity))
-        v0 = om / k
-        v_star = _nearest_zero(f_batch, v0)
-        devs.append(abs(v0 - v_star) / abs(v_star)
-                    if np.isfinite(v_star) else np.nan)
-    return np.asarray(devs)
-
-
 def run_family(name, case, speeds, geometry, n_omega=256):
+    from eigensolver_tpu.analytic import analytic_deviation
     from eigensolver_tpu.search import SearchConfig
     from eigensolver_tpu.sweep import run_case
 
@@ -150,15 +77,12 @@ def main():
     import jax
     if args.device:
         jax.config.update("jax_platforms", args.device)
-    # refine_on_cpu needs real f64 buffers (without x64 JAX silently
+    # refine_roots_f64 needs real f64 buffers (without x64 JAX silently
     # truncates and the refinement is a no-op)
     jax.config.update("jax_enable_x64", True)
-    try:
-        jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 2.0)
-    except Exception:
-        pass
     from eigensolver_tpu import cases
+    from eigensolver_tpu.utils import enable_compile_cache
+    enable_compile_cache()
 
     fams = [
         ("slab_photospheric_uniform_limit",

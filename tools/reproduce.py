@@ -367,17 +367,14 @@ def main():
     args = ap.parse_args()
 
     import jax
-    try:  # persistent compile cache: repeat sweeps skip the remote compile
-        jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 2.0)
-    except Exception:
-        pass
+    from eigensolver_tpu.utils import enable_compile_cache
+    enable_compile_cache()   # repeat sweeps skip the compile
     if args.device:
         jax.config.update("jax_platforms", args.device)
     if args.dtype is None:
         args.dtype = "float64" if jax.default_backend() == "cpu" else "float32"
     if args.dtype == "float64" or args.refine:
-        # refine_on_cpu genuinely needs f64 buffers (without x64 JAX silently
+        # refine_roots_f64 genuinely needs f64 buffers (without x64 JAX silently
         # truncates them to f32 and the refinement is a no-op); the on-device
         # scan keeps its explicit float32 dtypes either way.
         jax.config.update("jax_enable_x64", True)

@@ -17,12 +17,12 @@ process, each process pinned to its own physical core (taskset):
 Ideal is 1.0 (each process does identical work on its own core); the
 measurable deviation is the real cost of the multi-controller runtime -
 grpc barrier/collective latency and partition imbalance - i.e. the factor
-that multiplies ideal linear scaling on a pod, where the same program ships
-roots over ICI/DCN instead of localhost grpc. This number CAN fall below
-1.0 and is the honest stand-in for BASELINE.md's ">= 90% efficiency 1 -> 2
-hosts on the rotational-flow diagram" bar until real multi-host TPU
-hardware is available (the driver validates the same sharded program on an
-8-device virtual mesh via `__graft_entry__.dryrun_multichip`).
+that multiplies ideal linear scaling across hosts, where the same program
+ships roots over the network instead of localhost grpc. This number CAN
+fall below 1.0 and stands in for BASELINE.md's ">= 90% efficiency 1 -> 2
+hosts on the rotational-flow diagram" bar until a run on several real
+hosts exists (the same sharded program runs on one host's cards through
+`chip_smoke.py --four-cards`).
 
 Usage:
   python tools/scaling_two_process.py --json SCALING_r05.json
